@@ -1,11 +1,11 @@
-"""csgn_tpu — a TPU-native CSGN/CertSGN bounded homomorphic encryption framework.
+"""csgn_tpu — a CSGN/CertSGN bounded homomorphic encryption framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
+A from-scratch JAX/XLA re-design with the capabilities of the reference
 certfhe/CSGN C++ library: one-bit ciphertexts as packed chunk tensors,
 homomorphic add (chunk concat), homomorphic multiply (chunk cross-product AND),
 secret-key encrypt/decrypt (per-chunk AND over d secret positions, parity over
-chunks), and permutation key transforms — batched, kernelized, and shardable
-across TPU device meshes.
+chunks), and permutation key transforms — batched and shardable across
+device meshes.
 
 Public surface parity with the reference umbrella header (src/certFHE.h):
 Context, Plaintext, SecretKey, Ciphertext, Permutation.  `Library`/`Helper`/

@@ -1,7 +1,7 @@
 """Batched ciphertexts: B independent ciphertexts as one ``uint32[B, W, C]``.
 
 The reference processes independent ciphertexts one at a time (its timing
-harness loops, tests/timings.cpp:26-42); on TPU a batch of B same-shape
+harness loops, tests/timings.cpp:26-42); here a batch of B same-shape
 ciphertexts is one array with a leading batch axis (SURVEY.md §7 "batch axis
 in front everywhere"), and every operator runs once for the whole fleet:
 
@@ -11,17 +11,15 @@ in front everywhere"), and every operator runs once for the whole fleet:
   * permute — same Beneš plan per element (or per-element plans via
     `ops.permute_benes.apply_benes_batch`)
 
-Kernel strategy: the single-ciphertext Pallas kernels vectorize over the
-batch axis with `jax.vmap` (Pallas prepends a grid dimension; per-step VMEM
-blocks are unchanged, so eligibility checks are the per-element ones).  Both
-operands of `*` must share B — TPU lanes want the uniform case; mixed shapes
-stay a Python loop of `Ciphertext`s.
+The `ops/core.py` ops broadcast over the leading batch axis, so each batched
+operator is one XLA computation.  Both operands of `*` must share B; mixed
+shapes stay a Python loop of `Ciphertext`s.
 
 Fast paths the flat layout makes free:
   * fresh x fresh multiply (C==1 both) is ONE elementwise AND — the batched
     analogue of the reference's defaultN_multiply (src/Ciphertext.cpp:124-131).
   * fresh-batch interop: `SecretKey.encrypt_batch` emits ``[W, B]`` (batch on
-    lanes); `from_fresh`/`to_fresh` are a transpose away.
+    the minor axis); `from_fresh`/`to_fresh` are a transpose away.
 
 Chunk order: batched `*` materializes the same physical order for every
 element, so ONE shared `logical` tag (ops/order.py) covers the whole batch.
@@ -185,10 +183,9 @@ class CiphertextBatch:
 
         The key-rotation-fleet pattern: B ciphertexts re-randomized under B
         distinct transforms in one computation.  All plans share the delta
-        schedule (same n), so they stack into one mask tensor and run through
-        the fused Pallas kernel at scale (ops/permute_benes.py
-        `apply_benes_batch_pallas`); chunk positions are untouched, so the
-        shared order tag carries over.
+        schedule (same n), so they stack into one mask tensor
+        (ops/permute_benes.py `apply_benes_batch`); chunk positions are
+        untouched, so the shared order tag carries over.
         """
         if len(perms) != self.batch:
             raise ValueError(f"need {self.batch} permutations, got {len(perms)}")

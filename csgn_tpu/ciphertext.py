@@ -1,6 +1,6 @@
 """Ciphertext: an immutable, HBM-resident packed chunk tensor.
 
-TPU-native re-design of reference `certFHE::Ciphertext`
+Re-design of reference `certFHE::Ciphertext`
 (src/Ciphertext.{h,cpp}).  Differences by design:
 
   * **Immutable pytree** — the reference's mutable value semantics harbor a
@@ -8,24 +8,23 @@ TPU-native re-design of reference `certFHE::Ciphertext`
     src/Ciphertext.cpp:306-329; see SURVEY.md §2b.1).  Here every operator
     returns a fresh `Ciphertext`; JAX's functional model makes that free.
   * **Word-major uint32 storage** — ``wt: uint32[W, chunks]`` with
-    W = ctx.words32.  Chunks ride the minor (lane) axis so every 128-lane TPU
-    register is full and HBM tiles carry no padding; the per-bit layout is
+    W = ctx.words32.  Chunks ride the minor (contiguous) axis, so each word
+    row of a ciphertext is one contiguous run of memory; the per-bit layout is
     the exact hi/lo split of the reference's MSB-first uint64 words (see
     `csgn_tpu.layout`).  Chunk-major views exist only at the serialization
     boundary (`to_u64`/`from_u64`).
   * **Lazy chunk order** — decryption is a parity over the multiset of
     chunks (src/SecretKey.cpp:126-140), so chunk order is semantically
     irrelevant; only the reference's byte layout pins multiply's ``i*t2+j``
-    order (src/Ciphertext.cpp:159).  Producing that order physically is a
-    lane-granularity interleave — measured 3-6x slower than the j-major
-    order for small/unaligned t2 — so ``*`` materializes whichever order the
-    TPU likes and records the reference order in a ``logical`` index tag,
-    resolved by one gather at interop boundaries (see `csgn_tpu.ops.order`).
+    order (src/Ciphertext.cpp:159).  A product may therefore be stored in
+    another physical order with the reference order recorded in a
+    ``logical`` index tag, resolved by one gather at interop boundaries (see
+    `csgn_tpu.ops.order`).  Every product route today is canonical.
     `set_eager_order(True)` restores physically-canonical results everywhere.
   * **Alignment pad chunks** — an all-zero chunk is parity-neutral under
     decryption and absorbing under multiply, so the dispatch may append zero
-    chunks (marked PAD in the tag, counted in the static ``pad`` field) to
-    reach Mosaic lane alignment; they are dropped by the same interop gather.
+    chunks (marked PAD in the tag, counted in the static ``pad`` field);
+    they are dropped by the same interop gather.
     ``chunks`` always reports the reference-visible (logical) count.
   * **No materialized bitlen** — the reference carries a per-word `bitlen`
     array (src/Ciphertext.h:19-23), but it is always the same per-chunk

@@ -76,18 +76,16 @@ def cmd_timings(cfg: RunConfig) -> int:
     """Eight rows, mapping 1:1 onto reference tests/timings.cpp: keygen,
     encrypt, fresh add, fresh multiply, permutation generation, permute
     secret key, permute ciphertext, decrypt (permuted key + ciphertext) —
-    plus the reference's size lines.  Device rows are batch-amplified and
-    RTT-corrected (docs/performance.md methodology)."""
+    plus the reference's size lines.  Device rows are medians of calls that
+    each wait for their result (`utils.timing.device_median_time`)."""
     import jax
     import jax.numpy as jnp
 
     from csgn_tpu import Ciphertext, Permutation, SecretKey
-    from csgn_tpu.utils.timing import Timer, device_median_time, measure_rtt
+    from csgn_tpu.utils.timing import Timer, device_median_time
 
     ctx = cfg.context()
     keys = jax.random.split(jax.random.key(cfg.seed), 4)
-    rtt = measure_rtt()
-    print(f"[dispatch round-trip baseline: {rtt*1e3:.2f} ms — subtracted below]")
 
     SecretKey.generate(ctx, keys[3])          # warm the keygen compile
     t = Timer("keygen")
@@ -97,9 +95,7 @@ def cmd_timings(cfg: RunConfig) -> int:
 
     mask = jnp.asarray(sk.mask)
     bits = jnp.asarray(np.random.default_rng(0).integers(0, 2, cfg.batch), dtype=jnp.uint8)
-    te = device_median_time(
-        lambda: np.asarray(sk.encrypt_batch(bits, keys[1])[0, 0]), rtt=rtt
-    )
+    te = device_median_time(lambda: sk.encrypt_batch(bits, keys[1]))
     print(f"encrypt x{cfg.batch}: {te*1e3:.3f} ms ({cfg.batch/te:,.0f} enc/s)")
 
     words = sk.encrypt_batch(bits, keys[1])
@@ -107,11 +103,11 @@ def cmd_timings(cfg: RunConfig) -> int:
 
     # Fresh addition (reference timings.cpp:34-37): chunk concatenation.
     add_jit = jax.jit(core.add_chunks)
-    ta = device_median_time(lambda: np.asarray(add_jit(words, words)[0, 0]), rtt=rtt)
+    ta = device_median_time(lambda: add_jit(words, words))
     print(f"add {cfg.batch}+{cfg.batch} chunks: {ta*1e3:.3f} ms")
 
     mul_jit = jax.jit(core.mul_chunks)
-    tm = device_median_time(lambda: np.asarray(mul_jit(words, words)[0, 0]), rtt=rtt)
+    tm = device_median_time(lambda: mul_jit(words, words))
     print(f"multiply {cfg.batch}x{cfg.batch} chunks: {tm*1e3:.3f} ms")
 
     Permutation.random(ctx, keys[3])          # warm the compile
@@ -130,9 +126,7 @@ def cmd_timings(cfg: RunConfig) -> int:
     from csgn_tpu.ops import dispatch
 
     plan = perm.benes_plan()
-    tc = device_median_time(
-        lambda: np.asarray(dispatch.permute(words, plan)[0, 0]), rtt=rtt
-    )
+    tc = device_median_time(lambda: dispatch.permute(words, plan))
     print(f"permute ciphertext ({cfg.batch} chunks): {tc*1e3:.3f} ms")
 
     # Decrypt with the permuted key over the permuted ciphertext
@@ -140,7 +134,7 @@ def cmd_timings(cfg: RunConfig) -> int:
     pwords = dispatch.permute(words, plan)
     pmask = jnp.asarray(psk.mask)
     dec_jit = jax.jit(core.decrypt_parity)
-    td = device_median_time(lambda: np.asarray(dec_jit(pwords, pmask)), rtt=rtt)
+    td = device_median_time(lambda: dec_jit(pwords, pmask))
     print(f"decrypt {cfg.batch} chunks (permuted key): {td*1e3:.3f} ms")
 
     # Size lines (reference timings.cpp:69-72).
@@ -235,6 +229,9 @@ def main(argv=None) -> int:
     )
     args = p.parse_args(argv)
     cfg = _load_config(args)
+    from csgn_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     rc = {
         "demo": cmd_demo,
         "selftest": cmd_selftest,

@@ -1,6 +1,6 @@
 """Scheme parameters for the CSGN bounded homomorphic encryption scheme.
 
-TPU-native re-design of the reference `certFHE::Context` (reference:
+Re-design of the reference `certFHE::Context` (reference:
 src/Context.{h,cpp}).  The reference stores (N, D, S, defaultLen) as mutable
 members (src/Context.cpp:20-29); here the context is a frozen, hashable
 dataclass so it can be closed over by jitted functions as a static argument.
@@ -9,8 +9,8 @@ Derived quantities:
   * ``s = n // (2 * d)`` — reference src/Context.cpp:22.
   * ``words64 = ceil(n / 64)`` — the reference's ``defaultLen``
     (src/Context.cpp:24-28): number of uint64 words per fresh-ciphertext chunk.
-  * ``words32 = 2 * words64`` — the TPU-facing layout splits each uint64 into
-    (hi, lo) uint32 halves because TPUs have no native 64-bit vector lanes.
+  * ``words32 = 2 * words64`` — the device layout splits each uint64 into
+    (hi, lo) uint32 halves (JAX computes in 32-bit integers by default).
     The packing rule stays uniform: plaintext-domain bit ``j`` of a chunk
     lives in uint32 word ``j // 32`` at shift ``31 - (j % 32)``, which is
     exactly the reference's MSB-first uint64 layout (bit j in word ``j//64``
@@ -59,7 +59,7 @@ class Context:
 
     @property
     def words32(self) -> int:
-        """uint32 words per chunk in the TPU layout (2 per uint64 word)."""
+        """uint32 words per chunk in the device layout (2 per uint64 word)."""
         return 2 * self.words64
 
     @property

@@ -65,9 +65,8 @@ def pack_bits_wc(bits: jax.Array) -> jax.Array:
     """Word-major packing: 0/1 values ``bits[..., n, C]`` -> uint32 ``[..., W, C]``.
 
     Same MSB-first bit rule as `pack_bits`, but bits live on axis -2 and the
-    chunk axis C rides along as the minor (lane) dimension — the framework's
-    internal compute layout (chunks map to TPU vector lanes; a row of 40 words
-    would waste 2/3 of each 128-lane register and pad 3.2x in HBM).
+    chunk axis C rides along as the minor (contiguous) dimension — the
+    framework's internal compute layout.
     """
     n, c = bits.shape[-2], bits.shape[-1]
     w32 = words32_for(n)
@@ -92,7 +91,7 @@ def unpack_bits_wc(words: jax.Array, n: int) -> jax.Array:
 def u64_to_u32(words64: np.ndarray) -> np.ndarray:
     """Split uint64 words ``[..., W]`` into uint32 ``[..., 2W]`` (hi, lo) pairs.
 
-    Host-side (numpy): TPUs run with 32-bit lanes; uint64 only appears at the
+    Host-side (numpy): the device computes in uint32; uint64 only appears at the
     serialization boundary when diffing against reference dumps.
     """
     w = np.asarray(words64, dtype=np.uint64)

@@ -437,7 +437,7 @@ def eval_homomorphic_batch(
     Each input wire is a `CiphertextBatch` holding that wire's ciphertext for
     all B instances; every gate then runs ONCE as a batched dispatch on the
     whole fleet ([B, W, C] kernels), so evaluating a circuit over B inputs
-    costs O(gates) dispatches instead of O(B * gates) — the TPU-first shape
+    costs O(gates) dispatches instead of O(B * gates) — the batched shape
     of the reference's per-request gate chaining
     (/root/reference/tests/basic_operations.cpp:30-43).  Bit-equal per
     element to `eval_homomorphic` (tests/test_netlist.py).

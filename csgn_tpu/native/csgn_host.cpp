@@ -13,7 +13,7 @@
 //
 //   2. Reference-semantics CPU oracle: packed-word add / multiply / decrypt /
 //      permute on uint32 word-major buffers, used by differential tests to
-//      cross-check the JAX/TPU pipeline from an independent implementation.
+//      cross-check the JAX pipeline from an independent implementation.
 //
 // Layout contract: packed uint32 words, MSB-first within the word; bit j of a
 // chunk lives in word j/32 at shift 31-(j%32); W32 = 2*ceil(n/64) words per

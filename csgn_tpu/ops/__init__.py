@@ -1,5 +1,5 @@
-"""Compute ops: jnp oracles (`core`), Pallas TPU kernels (`kernels`), and
-size/backend-aware dispatch (`dispatch`)."""
+"""Compute ops: jnp oracles (`core`) and the jitted op dispatch
+(`dispatch`)."""
 
 from csgn_tpu.ops.core import (
     add_chunks,

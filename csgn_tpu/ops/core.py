@@ -1,20 +1,13 @@
 """Core homomorphic ops on packed chunk tensors — pure jnp reference versions.
 
-These are the semantics oracles: every Pallas kernel in `csgn_tpu.ops.kernels`
-must match them bit-exactly.  Several of them are ALSO the production compute
-path: measured on a real v5e chip, the eq-all decrypt formulation below runs
-at ~920 GB/s read (HBM speed-of-light) straight out of XLA, so there is
-nothing left for a hand-written kernel to win (benchmarks in
-docs/performance.md).  The multiply, by contrast, triples its traffic under
-XLA's broadcast fusion and is served by the Pallas kernel in `kernels.py`.
+These are the semantics oracles, and also the production compute path:
+`ops.dispatch` jits them (PERF.md has their times on the card).
 
 Layout convention — **word-major ("wc")**: a ciphertext is ``uint32[W, C]``
-with W = ctx.words32 packed words (axis -2) and C chunks on the minor axis.
-Chunks therefore map onto TPU vector lanes: word rows are contiguous across
-chunks, every 128-lane register is full, and HBM tiles carry no padding
-(a chunk-major [C, 40] array pads each row to 128 lanes on TPU — 3.2x wasted
-bandwidth, measured).  Batched ciphertexts are ``uint32[B, W, C]``; fresh
-single-chunk batches are simply ``uint32[W, B]`` (batch rides the chunk axis).
+with W = ctx.words32 packed words (axis -2) and C chunks on the minor axis,
+so each word row is contiguous across chunks.  Batched ciphertexts are
+``uint32[B, W, C]``; fresh single-chunk batches are simply ``uint32[W, B]``
+(batch rides the chunk axis).
 
 Semantics parity (reference certfhe/CSGN):
   * add = chunk concatenation            (reference src/Ciphertext.cpp:107-122)
@@ -77,8 +70,7 @@ def chunk_matches(words: jax.Array, mask: jax.Array) -> jax.Array:
     """Per-chunk decrypt bit: AND of the chunk's bits at the d secret positions.
 
     A chunk matches iff every mask bit is present: ``(chunk & mask) == mask``
-    word-wise, all words.  This beats the popcount formulation on the VPU
-    (no cross-lane popcount accumulate; measured ~920 vs ~500 GB/s).
+    word-wise, all words (no per-bit unpack and no popcount).
     words: uint32[..., W, C]; mask: uint32[W].  Returns uint32[..., C].
     """
     m = mask[..., :, None]
@@ -107,7 +99,7 @@ def permute_chunks(words: jax.Array, perm: jax.Array, n: int) -> jax.Array:
     words: uint32[..., W, C] -> same shape.  Reference semantics
     (src/Ciphertext.cpp:33-34) on single-chunk inputs; correct per-chunk
     extension for multi-chunk ones.  In the word-major layout this is a
-    *row* gather on the unpacked [n, C] bit matrix — lanes stay contiguous.
+    *row* gather on the unpacked [n, C] bit matrix — chunks stay contiguous.
     """
     bits = layout.unpack_bits_wc(words, n)
     out = jnp.take(bits, perm, axis=-2)

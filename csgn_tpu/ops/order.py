@@ -7,11 +7,9 @@ observable byte layout (serialization, printing, golden comparisons) pins the
 canonical order ``i*t2 + j`` for multiply (src/Ciphertext.cpp:159) and
 "left then right" for add (src/Ciphertext.cpp:107-122).
 
-On TPU, producing the canonical i-major multiply order physically is a
-lane-granularity interleave whenever t2 is small/unaligned — measured 3-6x
-slower than the j-major order, which is just a concatenation of aligned
-elementwise ANDs (docs/performance.md).  So the framework materializes
-whichever order the hardware likes and carries a **logical index tag**:
+A product may be materialized in a non-canonical physical order (the
+j-major order is just a concatenation of elementwise ANDs) as long as it
+carries a **logical index tag**:
 
     logical: int32[physical]          # physical position p holds the chunk
                                       # whose reference-order index is logical[p],
@@ -21,9 +19,7 @@ whichever order the hardware likes and carries a **logical index tag**:
 **Pad chunks** extend the idea to *alignment*: an all-zero chunk is
 parity-neutral under decryption ((0 & mask) != mask, so it contributes 0 to
 the chunk parity) and absorbing under multiply (0 & x = 0), so the framework
-may freely append zero chunks to reach Mosaic's 128-lane alignment and run
-the fast Pallas kernels on shapes they could not otherwise serve (see
-`kernels.mul_chunks_pallas_tiled_ragged`).  Pads are marked PAD in the tag
+may freely append zero chunks to align a shape.  Pads are marked PAD in the tag
 and dropped — together with the order resolution — by the single gather at
 interop boundaries (`canonicalize`).
 
@@ -91,8 +87,7 @@ def cross_logical(
     index of the product of a's chunk (logical i) with b's chunk (logical j)
     is ``i*t2 + j`` (reference src/Ciphertext.cpp:159); any pair involving a
     pad chunk is itself a pad (0 & x = 0).  Physical layout is either i-major
-    (canonical, ``p = p1*t2P + p2``) or j-major (``p = p2*t1P + p1``, the
-    TPU-friendly order).
+    (canonical, ``p = p1*t2P + p2``) or j-major (``p = p2*t1P + p1``).
     """
     if la is None and lb is None and not jmajor:
         return None
@@ -122,7 +117,7 @@ def canonicalize(
 
     ``out_len`` is the logical chunk count (physical count minus pads); it
     must be passed whenever pads are present (it is static — shapes cannot
-    depend on the tag's values).  One lane-axis gather over the payload — the
+    depend on the tag's values).  One chunk-axis gather over the payload — the
     only cost lazy ordering ever pays, and only at interop boundaries.
     """
     phys = logical.shape[0]

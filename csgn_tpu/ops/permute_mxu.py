@@ -1,12 +1,11 @@
 """Permutation as a one-hot MXU matmul — alternative to the gather path.
 
-A bit-position permutation is a linear map over GF(2); on TPU it can ride the
-MXU: unpack chunks to a [n_pad, C] bit matrix, multiply by the one-hot
-permutation matrix in bf16 (0/1 values are exact), repack.  Measured on v5e
-it trades roughly evenly with the XLA gather path (faster at small and very
-large chunk counts, slower in between — docs/performance.md); it exists as a
-second independent implementation (differential testing) and as the base for
-batched multi-permutation application (P can hold several permutations).
+A bit-position permutation is a linear map over GF(2), so it can ride the
+matrix unit: unpack chunks to a [n_pad, C] bit matrix, multiply by the
+one-hot permutation matrix in bf16 with float32 accumulation (0/1 values are
+exact), repack.  It is off the main path: it exists as a second independent
+implementation (differential testing) and as the base for batched
+multi-permutation application (P can hold several permutations).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Multi-device SPMD layer: mesh construction + collective homomorphic ops.
 
 The reference is single-threaded, single-process (SURVEY.md §2c); this package
-is the from-scratch TPU-native scaling story: ciphertext chunk axes and
-encryption batch axes shard over a `jax.sharding.Mesh`, with XLA collectives
-(all_gather / ppermute / psum) compiled over ICI.
+is the from-scratch scaling story: ciphertext chunk axes and encryption
+batch axes shard over a `jax.sharding.Mesh`, with XLA collectives
+(all_gather / ppermute / psum) between the devices.
 """
 
 from csgn_tpu.parallel.batch_ops import (

@@ -9,8 +9,8 @@ parallel, zero collectives) while each element's chunk axis spreads over
 Op structure mirrors the 1-D chunk-sharded layer (`parallel/ops.py`):
 
   * **multiply** all-gathers the second operand's chunk axis over ``"c"``
-    only (the batch axis never moves), then runs the vmapped Pallas kernels
-    per local batch block; i-major output keeps the input sharding despite
+    only (the batch axis never moves), then runs the batched product per
+    local batch block; i-major output keeps the input sharding despite
     the multiplicative growth.
   * **decrypt** reduces matches locally to one count per local element,
     crosses ``"c"`` with a [B_local]-sized psum, and leaves the result
@@ -66,8 +66,8 @@ def sharded_mul_batch(a: jax.Array, b: jax.Array, mesh: Mesh) -> jax.Array:
     vmapped `core.mul_chunks`).
 
     The second operand's chunk axis is all-gathered over ``"c"`` (batch
-    blocks never move); each device then runs the vmapped single-ciphertext
-    Pallas kernels on its [B/bd, W, t1/cd] x [B/bd, W, t2] block.
+    blocks never move); each device then runs the batched product on its
+    [B/bd, W, t1/cd] x [B/bd, W, t2] block.
     """
     bd, cd = mesh.shape[BATCH_AXIS], mesh.shape[CHUNK_AXIS]
     _check_div("batch", a.shape[0], bd)
@@ -91,7 +91,7 @@ def sharded_mul_batch(a: jax.Array, b: jax.Array, mesh: Mesh) -> jax.Array:
             mesh=mesh,
             in_specs=(P(BATCH_AXIS, None, CHUNK_AXIS),) * 2,
             out_specs=P(BATCH_AXIS, None, CHUNK_AXIS),
-            check_vma=False,  # pallas interpret lowering lacks vma support
+            check_vma=False,
         )(a, b)
 
 

@@ -25,16 +25,20 @@ __all__ = ["initialize", "global_chunk_mesh", "shard_ciphertext", "pad_chunks_to
 
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None) -> None:
+               process_id: int | None = None,
+               local_device_ids: "list[int] | None" = None) -> None:
     """`jax.distributed.initialize` passthrough (env-driven when args omitted).
 
-    Call once per host before any jax computation in multi-host runs; no-op
-    arguments default to cluster-environment autodetection.
+    Call once per process before any jax computation in multi-process runs.
+    ``local_device_ids`` restricts this process to those local devices — a
+    launch with one process per card passes its own card's id, so that no
+    process claims every card of the host.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 

@@ -64,9 +64,6 @@ def sharded_mul_allgather(a: jax.Array, b: jax.Array, mesh: Mesh, axis: str = CH
 
     def local_fn(a_blk, b_blk):
         b_full = jax.lax.all_gather(b_blk, axis, axis=1, tiled=True)
-        # Size-aware dispatch: the per-device block runs the same Pallas
-        # kernels as the single-chip path (the XLA broadcast form is ~3x
-        # slower at scale — docs/performance.md).
         return dispatch.mul_chunks(a_blk, b_full)
 
     t1, t2 = a.shape[-1], b.shape[-1]
@@ -79,7 +76,7 @@ def sharded_mul_allgather(a: jax.Array, b: jax.Array, mesh: Mesh, axis: str = CH
             mesh=mesh,
             in_specs=(P(None, axis), P(None, axis)),
             out_specs=P(None, axis),
-            check_vma=False,  # pallas interpret lowering lacks vma support
+            check_vma=False,
         )(a, b)
 
 
@@ -157,7 +154,7 @@ def sharded_mul_ring(a: jax.Array, b: jax.Array, mesh: Mesh, axis: str = CHUNK_A
             mesh=mesh,
             in_specs=(P(None, axis), P(None, axis)),
             out_specs=P(None, axis),
-            check_vma=False,  # pallas interpret lowering lacks vma support
+            check_vma=False,
         )(a, b)
 
 
@@ -166,9 +163,9 @@ def sharded_mul_decrypt(
 ):
     """Chunk-sharded FUSED multiply+decrypt: ``(prod P(None, axis), parity)``.
 
-    The flagship pipeline at pod scale: each device runs the fused Pallas
-    kernel on its (i_local, j) block — writing its product block AND
-    accumulating its block's match count in the same pass — then one scalar
+    The flagship pipeline across devices: each device runs the fused
+    multiply+decrypt on its (i_local, j) block — writing its product block
+    and taking its block's match count from the operands — then one scalar
     psum crosses the mesh and the parity is the total mod 2.  The product is
     never re-read anywhere on the mesh.  Bit-identical to
     `sharded_mul_allgather` + `sharded_decrypt_parity` (tests assert both).
@@ -193,7 +190,7 @@ def sharded_mul_decrypt(
             mesh=mesh,
             in_specs=(P(None, axis), P(None, axis), P(None)),
             out_specs=(P(None, axis), P(None)),
-            check_vma=False,  # pallas interpret lowering lacks vma support
+            check_vma=False,
         )(a, b, mask)
         return prod, parity[0]
 

@@ -1,6 +1,6 @@
 """Bit-position permutations: generation, composition, inversion.
 
-TPU-native re-design of reference `certFHE::Permutation`
+Re-design of reference `certFHE::Permutation`
 (src/Permutation.{h,cpp}).  Semantics parity:
 
   * applying π to an object maps output bit i from input bit π[i]

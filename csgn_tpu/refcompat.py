@@ -2,7 +2,7 @@
 
 The reference draws every random value from glibc `rand()` in a fixed call
 order.  This module replays those call sequences exactly (on the host, in
-numpy) so tests can check that our TPU pipeline produces *bit-identical*
+numpy) so tests can check that our JAX pipeline produces *bit-identical*
 ciphertext words to the reference binary for a pinned `srand` seed — without
 linking any reference code.
 

@@ -1,14 +1,13 @@
 """Secret key: keygen, encryption, decryption.
 
-TPU-native re-design of reference `certFHE::SecretKey`
+Re-design of reference `certFHE::SecretKey`
 (src/SecretKey.{h,cpp}).  The key is d distinct bit positions in [0, n)
 (index form, matching reference src/SecretKey.h:22) **plus** a precomputed
-packed mask form ``uint32[W]`` — the kernel-facing representation.  With the
+packed mask form ``uint32[W]`` — the device-facing representation.  With the
 mask, a chunk decrypts via the eq-all trick ``(chunk & mask) == mask`` over
 words, then a parity sum across chunks: no per-bit unpack (the reference
 materializes one byte per bit, src/SecretKey.cpp:87-95,113-124 — the main
-reason its decrypt runs at ~1 Gbit/s; the mask form streams packed words at
-HBM speed-of-light, ~920 GB/s measured on v5e).
+reason its decrypt runs at ~1 Gbit/s; the mask form streams packed words).
 
 Randomness is counter-based (threefry) and explicit: `generate` and `encrypt`
 take a `jax.random` key.  The reference's time-seeded C rand() path
@@ -85,7 +84,7 @@ class SecretKey:
     def size(self) -> int:
         """Reference byte accounting (src/SecretKey.cpp:268-276): context
         pointer + length field + one uint64 per secret index.  144 B at d=16,
-        matching the reference's printed size.  (The TPU-resident footprint
+        matching the reference's printed size.  (The device-resident footprint
         is `indices.nbytes + mask.nbytes` — the index and mask forms.)"""
         return 8 + 8 + 8 * self.ctx.d
 
@@ -101,46 +100,25 @@ class SecretKey:
     def encrypt_batch(self, bits: jax.Array, rng, engine: str = "threefry") -> jax.Array:
         """Encrypt bits[batch] -> fresh chunk words uint32[W, batch].
 
-        engine="threefry" (default): counter-based `jax.random` — `rng` is a
-        PRNG key; reproducible and splittable (371 M enc/s on v5e).
-        engine="pallas": fused TPU kernel on the hardware PRNG — `rng` is an
-        integer seed; 12x faster (4.45 B enc/s) but TPU-only and not
-        bit-reproducible against threefry (encryption is randomized; both
-        satisfy the same invariants).
-        engine="counter": threefry2x32 evaluated inside the Pallas kernel on
-        global counters — `rng` is an integer seed; reproducible across
-        backends AND batch/block sizes (same (seed, batch index) -> same
-        ciphertext on CPU and TPU), at a fraction of the hardware-PRNG
-        kernel's cost and well above the XLA threefry path (numbers in
-        docs/performance.md).
+        engine="threefry" (default): `jax.random` — `rng` is a PRNG key;
+        reproducible and splittable.
+        engine="counter": threefry2x32 on global counters
+        (`ops/encrypt_counter.py`) — `rng` is an integer seed; the same
+        (seed, batch index) gives the same ciphertext on any backend and at
+        any batch size.  Both engines satisfy the same invariants; their
+        streams differ.
         """
-        if engine == "pallas":
-            from csgn_tpu.ops.encrypt_pallas import encrypt_bits_pallas
-
-            if jax.default_backend() != "tpu":
-                raise NotImplementedError(
-                    "engine='pallas' needs a TPU (the on-core PRNG has no CPU lowering)"
-                )
-            return encrypt_bits_pallas(
-                int(rng), jnp.asarray(bits), self.indices, self._mask,
-                self.ctx.valid_mask, self.ctx.n, self.ctx.d,
-            )
         if engine == "counter":
-            from csgn_tpu.ops import encrypt_pallas as ep
+            from csgn_tpu.ops.encrypt_counter import encrypt_bits_counter
 
-            fn = (
-                ep.encrypt_bits_counter
-                if jax.default_backend() == "tpu"
-                else ep.encrypt_bits_counter_ref  # same bits, plain jnp
-            )
             batch = int(jnp.asarray(bits).shape[0])
             with op_metrics().record(
                 "key.encrypt", chunks_out=batch,
                 bytes_moved=self.ctx.chunk_count_bytes(batch),
             ):
-                return fn(
-                    int(rng), jnp.asarray(bits), self.indices, self._mask,
-                    self.ctx.valid_mask, self.ctx.n, self.ctx.d,
+                return encrypt_bits_counter(
+                    int(rng), bits, self.indices, self._mask,
+                    self.ctx.valid_mask, self.ctx.d,
                 )
         if engine != "threefry":
             raise ValueError(f"unknown encrypt engine {engine!r}")
@@ -216,12 +194,9 @@ class SecretKey:
 
         The flagship pipeline (reference Ciphertext.cpp:153-163 then
         SecretKey.cpp:126-140) staged costs one product write plus one product
-        read; the fused Pallas kernel accumulates the decrypt parity while
-        writing the product, halving HBM traffic (ops/kernels.py
-        `mul_decrypt_pallas`).  Routing covers the FULL `*` shape envelope
-        (`ops.dispatch.mul_decrypt_auto`: canonical, swapped j-major, and
-        ragged fused kernels — the parity is chunk-order-independent and
-        pad-neutral), so unaligned chain shapes stay fused too.  Bit-exact to
+        read; the fused form takes the parity from the operands' match counts
+        and never reads the product (`ops.dispatch.mul_decrypt_auto`; the
+        parity is chunk-order-independent and pad-neutral).  Bit-exact to
         ``self.decrypt(c1 * c2)``; the returned product is a normal
         Ciphertext carrying the combined order tag (canonical physical order
         under `set_eager_order(True)`, like ``*``).
@@ -252,9 +227,8 @@ class SecretKey:
 
     def mul_and_decrypt_batch(self, cb1, cb2):
         """Batched fused multiply+decrypt: ``(cb1 * cb2, bits uint32[B])`` —
-        every element's product and its decrypt parity in one pass per
-        element (vmapped fused kernels over the full shape envelope,
-        `ops.dispatch.mul_decrypt_batched_auto`).
+        every element's product and its decrypt parity in one dispatch
+        (`ops.dispatch.mul_decrypt_batched_auto`).
         Bit-exact to ``self.decrypt_batch((cb1 * cb2))``.
         """
         from csgn_tpu.batch import CiphertextBatch
@@ -415,13 +389,9 @@ class SecretKey:
     def permute_and_decrypt(
         self, ciphertext: Ciphertext, p: Permutation
     ) -> tuple[Ciphertext, Plaintext]:
-        """Fused key rotation + readout: ``(π(c), Dec_{π(k)}(π(c)))`` in ONE
-        pass over the payload.
-
-        The reference's permute-then-decrypt flow (tests/timings.cpp:56-66)
-        staged pays the permutation's read+write plus a full re-read; the
-        fused Beneš kernel accumulates the permuted-key eq-all count while
-        each permuted block is still in VMEM.  By the transform identity the
+        """Key rotation + readout: ``(π(c), Dec_{π(k)}(π(c)))`` in ONE
+        dispatch (the reference's permute-then-decrypt flow,
+        tests/timings.cpp:56-66).  By the transform identity the
         result equals ``self.decrypt(ciphertext)`` — asserting both is a
         built-in self-check of the rotation (tests do).
         """

@@ -9,7 +9,7 @@ in/out, payload bytes moved, and wall time, queryable as structured dicts
 Timing caveat: `seconds` is host-side dispatch wall time.  JAX dispatch is
 asynchronous, so for back-to-back ops this measures enqueue cost, not device
 time; derived GB/s is an *upper bound on visibility*, not a roofline claim.
-Device-honest rates come from `utils.timing.device_median_time` (used by the
+Device rates come from `utils.timing.device_median_time` (used by the
 CLI timings command and bench.py).  `jax.profiler` traces can be layered on
 top via `trace()`.
 

@@ -4,10 +4,9 @@ The permutation transform is CSGN's key-rotation primitive: π moves a
 ciphertext from key k to key π(k) without decrypting
 (Dec_{π(k)}(π(c)) = Dec_k(c), reference src/SecretKey.cpp:232-259).  A
 serving fleet rotating many clients' keys at once applies a DIFFERENT π to
-every ciphertext — on TPU that is ONE fused Pallas dispatch over the whole
-batch (`CiphertextBatch.apply_permutations`: all Beneš plans share the delta
-schedule, so plan i's stage masks are selected by the batch grid index;
-measured within 6% of the single-plan fused rate — docs/performance.md).
+every ciphertext — ONE dispatch over the whole batch
+(`CiphertextBatch.apply_permutations`: all Beneš plans share the delta
+schedule, so the k plans stack into one mask tensor).
 
 Flow: encrypt a fleet under one key -> grow each ciphertext (a mul step)
 -> rotate every element under its own permutation -> each client decrypts

@@ -9,8 +9,7 @@ the auctioneer decrypts each one-output DAG in O(leaves) with
 
 The serving layer does the encryption fleet: `BatchExecutor` groups all
 bids × width bit-encrypts into ONE batched dispatch instead of one
-round-trip per bit (15-19× lower latency on the benched TPU —
-docs/performance.md "Serving latency").
+dispatch per bit.
 
 Run: python examples/netlist_service.py [--bidders 8] [--width 16]
 """

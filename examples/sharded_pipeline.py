@@ -2,7 +2,7 @@
 
 Encrypt a batch (sharded), square it with the all-gather multiply, decrypt
 with a psum parity — the full SPMD lifecycle on whatever devices exist
-(virtual CPU mesh or a TPU slice; same compiled collectives).
+(virtual CPU mesh or several GPUs; same compiled collectives).
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
      python examples/sharded_pipeline.py

@@ -15,7 +15,7 @@ def test_bench_cpu_smoke():
         "PYTHONPATH": str(ROOT),
         "HOME": "/tmp",
     }
-    # bench respects the backend it lands on; on CPU it uses small sizes.
+    # bench names the device it lands on; on the CPU it uses small sizes.
     proc = subprocess.run(
         [sys.executable, str(ROOT / "bench.py")],
         capture_output=True,
@@ -31,7 +31,8 @@ def test_bench_cpu_smoke():
     # driver keys plus sub-metric keys (rates + best-3 spreads per op)
     assert {"metric", "value", "unit", "vs_baseline"} <= set(data)
     for sub in ("fused_gbps", "mul_gbps", "dec_gbps", "enc_b_per_s",
-                "perm_gbps", "perm_block_c", "fused_spread_pct", "groups"):
+                "perm_gbps", "anchor_gbps", "fused_spread_pct", "groups"):
         assert sub in data, sub
     assert data["value"] > 0
     assert data["groups"] >= 4
+    assert data["device"]["platform"] == "cpu"

@@ -69,10 +69,12 @@ def test_plan_caching(ctx, rng):
 
 
 @pytest.mark.parametrize("chunks", [64, 129, 4096])
-def test_pallas_fused_benes_matches(chunks):
-    """Interpret-mode check of the fused kernel vs the XLA delta-swap path."""
+def test_apply_benes_matches_native(chunks):
+    """The XLA delta swaps (direct and through the jitted dispatch) vs the
+    native C++ permutation oracle."""
     from csgn_tpu.context import Context
-    from csgn_tpu.ops.permute_benes import apply_benes_pallas
+    from csgn_tpu.native import binding as native
+    from csgn_tpu.ops import dispatch
 
     ctx2 = Context(1247, 16)
     rng = np.random.default_rng(chunks)
@@ -82,21 +84,18 @@ def test_pallas_fused_benes_matches(chunks):
         rng.integers(0, 2**32, (ctx2.words32, chunks), dtype=np.uint32)
         & ctx2.valid_mask[:, None]
     )
-    got = apply_benes_pallas(words, plan, block_c=128)
-    want = apply_benes(words, plan)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    want = native.permute(np.asarray(words).T, perm, ctx2.n).T
+    np.testing.assert_array_equal(np.asarray(apply_benes(words, plan)), want)
+    np.testing.assert_array_equal(np.asarray(dispatch.permute(words, plan)), want)
 
 
 def test_apply_benes_batch_multi_permutation(ctx):
-    """k different permutations over k ciphertexts in one fused computation:
-    the XLA stacked path and the fused Pallas kernel (interpret mode here;
-    real-Mosaic sweep in the .tpuq validation job) must both match the
-    per-element gather oracle."""
-    from csgn_tpu.ops.permute_benes import (
-        apply_benes_batch,
-        apply_benes_batch_pallas,
-        stack_plans,
-    )
+    """k different permutations over k ciphertexts in one computation: the
+    stacked delta swaps (direct and through the jitted dispatch) must match
+    the per-element native oracle."""
+    from csgn_tpu.native import binding as native
+    from csgn_tpu.ops import dispatch
+    from csgn_tpu.ops.permute_benes import apply_benes_batch, stack_plans
 
     rng = np.random.default_rng(77)
     k, chunks = 3, 6
@@ -112,11 +111,11 @@ def test_apply_benes_batch_multi_permutation(ctx):
         & ctx.valid_mask[None, :, None]
     )
     got = apply_benes_batch(words, stacked)
-    got_pl = apply_benes_batch_pallas(words, stacked, block_c=128)
+    got_d = dispatch.permute_batched_multi(words, stacked)
     for i in range(k):
-        want = core.permute_chunks(words[i], jnp.asarray(perms[i]), ctx.n)
-        np.testing.assert_array_equal(np.asarray(got[i]), np.asarray(want), err_msg=str(i))
-        np.testing.assert_array_equal(np.asarray(got_pl[i]), np.asarray(want), err_msg=str(i))
+        want = native.permute(np.asarray(words[i]).T, perms[i], ctx.n).T
+        np.testing.assert_array_equal(np.asarray(got[i]), want, err_msg=str(i))
+        np.testing.assert_array_equal(np.asarray(got_d[i]), want, err_msg=str(i))
 
 
 def test_ciphertext_batch_apply_permutations(small_ctx):
@@ -144,13 +143,12 @@ def test_ciphertext_batch_apply_permutations(small_ctx):
 
 
 @pytest.mark.parametrize("chunks,forced", [(6, 3), (256, 7), (130, 0)])
-def test_apply_benes_decrypt_fused(ctx, chunks, forced):
-    """Fused Beneš+decrypt == staged permute then eq-all decrypt, with
-    forced matches so nonzero parities are exercised (interpret mode here;
-    real-Mosaic coverage via the .tpuq validation job)."""
+def test_permute_decrypt_matches_staged(ctx, chunks, forced):
+    """One-dispatch permute+decrypt == staged permute then eq-all decrypt,
+    with forced matches so nonzero parities are exercised."""
     import jax
 
-    from csgn_tpu.ops.permute_benes import apply_benes_decrypt_pallas
+    from csgn_tpu.ops import dispatch
     from csgn_tpu.secret_key import SecretKey
 
     rng = np.random.default_rng(chunks * 7 + forced)
@@ -161,7 +159,7 @@ def test_apply_benes_decrypt_fused(ctx, chunks, forced):
         rng.integers(0, 2**32, (ctx.words32, chunks), dtype=np.uint32)
         & ctx.valid_mask[:, None]
     )
-    # Force matches AGAINST THE PERMUTED KEY: permute psk.mask back through
+    # Force matches AGAINST THE OUTPUT KEY: permute its mask back through
     # the inverse so the permuted chunk matches.
     psk_mask = jnp.asarray(sk.mask)
     if forced:
@@ -170,16 +168,12 @@ def test_apply_benes_decrypt_fused(ctx, chunks, forced):
         w_np[:, rng.choice(chunks, forced, replace=False)] |= pre[:, 0:1]
     words = jnp.asarray(w_np)
 
-    out, parity = apply_benes_decrypt_pallas(words, plan, psk_mask, block_c=128)
+    out, parity = dispatch.permute_decrypt(words, plan, psk_mask)
     want_out = core.permute_chunks(words, jnp.asarray(perm), ctx.n)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(want_out))
     assert int(parity) == int(core.decrypt_parity(want_out, psk_mask))
     if forced:
         assert int(parity) == forced & 1
-
-    _, cnt = apply_benes_decrypt_pallas(words, plan, psk_mask, block_c=128,
-                                        return_count=True)
-    assert int(cnt) == int(np.asarray(core.chunk_matches(want_out, psk_mask)).sum())
 
 
 def test_secret_key_permute_and_decrypt(ctx):
@@ -207,16 +201,11 @@ def test_secret_key_permute_and_decrypt(ctx):
 @pytest.mark.parametrize("kind", ["identity", "transposition"])
 def test_zero_mask_stage_skip(ctx, kind):
     """Structured perms route to plans with all-zero (identity) stages; the
-    apply paths skip those at trace time (r4) and must stay bit-exact.  The
+    apply paths skip those at trace time and must stay bit-exact.  The
     identity permutation is the extreme case: EVERY stage skips and the
-    kernels degenerate to a copy."""
-    from csgn_tpu.ops.permute_benes import (
-        apply_benes_batch,
-        apply_benes_batch_pallas,
-        apply_benes_decrypt_pallas,
-        apply_benes_pallas,
-        stack_plans,
-    )
+    network degenerates to a copy."""
+    from csgn_tpu.ops import dispatch
+    from csgn_tpu.ops.permute_benes import apply_benes_batch, stack_plans
 
     n = ctx.n
     perm = np.arange(n)
@@ -235,13 +224,11 @@ def test_zero_mask_stage_skip(ctx, kind):
     )
     want = core.permute_chunks(words, jnp.asarray(perm), n)
     np.testing.assert_array_equal(np.asarray(apply_benes(words, plan)), np.asarray(want))
-    np.testing.assert_array_equal(
-        np.asarray(apply_benes_pallas(words, plan, block_c=128)), np.asarray(want)
-    )
+    np.testing.assert_array_equal(np.asarray(dispatch.permute(words, plan)), np.asarray(want))
 
     mask = np.zeros(ctx.words32, np.uint32)
     mask[0] = 1 << 31
-    out, parity = apply_benes_decrypt_pallas(words, plan, jnp.asarray(mask), block_c=128)
+    out, parity = dispatch.permute_decrypt(words, plan, jnp.asarray(mask))
     np.testing.assert_array_equal(np.asarray(out), np.asarray(want))
     assert int(parity) == int(core.decrypt_parity(want, jnp.asarray(mask)))
 
@@ -251,21 +238,21 @@ def test_zero_mask_stage_skip(ctx, kind):
     stacked = stack_plans([plan, rnd])
     batch = jnp.stack([words, words])
     got_b = apply_benes_batch(batch, stacked)
-    got_bp = apply_benes_batch_pallas(batch, stacked, block_c=128)
+    got_bd = dispatch.permute_batched_multi(batch, stacked)
     np.testing.assert_array_equal(np.asarray(got_b[0]), np.asarray(want))
-    np.testing.assert_array_equal(np.asarray(got_bp[0]), np.asarray(want))
-    np.testing.assert_array_equal(np.asarray(got_b[1]), np.asarray(got_bp[1]))
+    np.testing.assert_array_equal(np.asarray(got_bd[0]), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(got_b[1]), np.asarray(got_bd[1]))
 
 
 def test_tiny_n_words_exceed_network_width():
     """n < 32 contexts have words32 = 2 > words_pad = 1: every path must
     drop/restore the canonical-zero trailing row instead of negative-padding
-    (r5 regression: the XLA path raised on these shapes)."""
+    (a past regression: the XLA path raised on these shapes)."""
     import numpy as np
     import jax.numpy as jnp
 
     from csgn_tpu.context import Context
-    from csgn_tpu.ops import core, permute_benes
+    from csgn_tpu.ops import core, dispatch, permute_benes
 
     rng = np.random.default_rng(4)
     for n in (17, 31):
@@ -279,15 +266,11 @@ def test_tiny_n_words_exceed_network_width():
         )
         want = core.permute_chunks(x, jnp.asarray(p), n)
         assert jnp.array_equal(permute_benes.apply_benes(x, plan), want)
-        assert jnp.array_equal(
-            permute_benes.apply_benes_pallas(x, plan, block_c=128), want
-        )
+        assert jnp.array_equal(dispatch.permute(x, plan), want)
         mask = np.zeros(ctx.words32, np.uint32)
         for pos in range(0, n, 7):
             mask[pos // 32] |= np.uint32(1) << (31 - pos % 32)
-        out, par = permute_benes.apply_benes_decrypt_pallas(
-            x, plan, jnp.asarray(mask), block_c=128
-        )
+        out, par = dispatch.permute_decrypt(x, plan, jnp.asarray(mask))
         assert jnp.array_equal(out, want)
         assert int(par) == int(core.decrypt_parity(want, jnp.asarray(mask)))
         # batch paths: 3 distinct plans
@@ -303,6 +286,4 @@ def test_tiny_n_words_exceed_network_width():
             [core.permute_chunks(xb[i], jnp.asarray(ps[i]), n) for i in range(3)]
         )
         assert jnp.array_equal(permute_benes.apply_benes_batch(xb, stacked), want_b)
-        assert jnp.array_equal(
-            permute_benes.apply_benes_batch_pallas(xb, stacked, block_c=128), want_b
-        )
+        assert jnp.array_equal(dispatch.permute_batched_multi(xb, stacked), want_b)

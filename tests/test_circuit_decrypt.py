@@ -171,14 +171,14 @@ def test_fleet_dag_guards(setup):
 
 def test_deep_chain_beyond_hbm(setup):
     """32-deep multiply chain of 2-chunk inputs: materialized = 2^32 chunks
-    (far beyond HBM); the circuit decrypts from 64 fresh leaf chunks."""
+    (64 GiB); the circuit decrypts from 64 fresh leaf chunks."""
     sk, enc = setup
     cts = [enc(1, i) + enc(0, 100 + i) for i in range(32)]   # 2 chunks each
     e = lift(cts[0])
     for ct in cts[1:]:
         e = e * ct
     assert e.chunks == 2 ** 32
-    assert e.nbytes_materialized >= 4 * 16 * 2 ** 30  # 4x a v5e chip's HBM
+    assert e.nbytes_materialized >= 64 * 2 ** 30  # 64 GiB at 16 B per chunk
     assert int(sk.decrypt_circuit(e)) == 1
     e0 = e * (enc(0, 999) + enc(1, 998) + enc(1, 997))  # xor in a 0 -> product 0... parity(0^1^1)=0
     assert int(sk.decrypt_circuit(e0)) == 0

@@ -1,12 +1,12 @@
-"""Fused multiply+decrypt over the FULL dispatch envelope (round-4 headliner).
+"""Fused multiply+decrypt over the FULL dispatch envelope.
 
 The reference pipeline (multiply src/Ciphertext.cpp:153-163 then decrypt
 src/SecretKey.cpp:104-147) serves every chunk count through one code path;
-`ops.dispatch.mul_decrypt_auto` must too — canonical, swapped j-major, ragged
-(zero-padded) and staged kernels all bit-exact to the staged oracle.  CPU
-tests run the Pallas kernels in interpret mode and force each route via
-monkeypatch (the TPU dispatch picks them automatically); the real-Mosaic
-sweep lives in tools/tpu_validate.py.
+`ops.dispatch.mul_decrypt_auto` must too.  The fused form takes the parity
+from the operands' match counts, so it is checked against the staged oracle
+at ragged chunk counts and both word widths, and `SecretKey.mul_and_decrypt`
+is checked on the tagged and padded layouts the order tags describe
+(forced via monkeypatch).
 """
 
 import jax
@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 
 from csgn_tpu.ciphertext import Ciphertext, set_eager_order
-from csgn_tpu.ops import core, dispatch, kernels, order
+from csgn_tpu.context import Context
+from csgn_tpu.ops import core, dispatch, order
 from csgn_tpu.secret_key import SecretKey
 
 
@@ -38,115 +39,56 @@ def sk(ctx):
     return SecretKey.generate(ctx, jax.random.key(99))
 
 
-# -- fused ragged kernel (direct, interpret mode) ----------------------------
+# -- fused identity at ragged shapes, W=40 and W=128 ---------------------------
 
 
-@pytest.mark.parametrize("t1,t2,fa,fb", [(3, 1100, 1, 7), (2, 2048, 2, 4), (5, 1500, 3, 3)])
-def test_mul_decrypt_ragged_kernel_matches_staged(ctx, sk, t1, t2, fa, fb):
-    """Fused ragged kernel: product blocks + zero pads bit-exact to the
-    unfused ragged kernel, parity == staged oracle over the padded product
-    (pad chunks parity-neutral) == oracle over the true product."""
+@pytest.mark.parametrize("n,d", [(1247, 16), (4095, 32)], ids=["W40", "W128"])
+@pytest.mark.parametrize(
+    "t1,t2,fa,fb", [(3, 1100, 1, 7), (2, 2048, 2, 4), (5, 1500, 3, 3), (3, 700, 2, 5),
+                    (7, 333, 0, 3)],
+)
+def test_mul_decrypt_count_ragged(n, d, t1, t2, fa, fb):
+    """Parity and raw count from the operands == the staged oracle over the
+    materialized product, at chunk counts that are not powers of two."""
+    ctx = Context(n, d)
+    sk = SecretKey.generate(ctx, jax.random.key(n + t2))
     rng = np.random.default_rng(t1 * 10000 + t2)
     mask = jnp.asarray(sk.mask)
     a = _with_matches(rng, ctx, _rand_wc(rng, t1, ctx), mask, fa)
     b = _with_matches(rng, ctx, _rand_wc(rng, t2, ctx), mask, fb)
-
-    prod, parity = kernels.mul_decrypt_pallas_tiled_ragged(a, b, mask)
-    want_padded = kernels.mul_chunks_pallas_tiled_ragged(a, b)
-    np.testing.assert_array_equal(np.asarray(prod), np.asarray(want_padded))
     want = core.mul_chunks(a, b)
-    assert int(parity) == int(core.decrypt_parity(want, mask))
-    # the padded product decrypts to the same parity (pad neutrality)
-    assert int(parity) == int(core.decrypt_parity(prod, mask))
-
-
-def test_mul_decrypt_ragged_kernel_count(ctx, sk):
-    rng = np.random.default_rng(17)
-    mask = jnp.asarray(sk.mask)
-    a = _with_matches(rng, ctx, _rand_wc(rng, 3, ctx), mask, 2)
-    b = _with_matches(rng, ctx, _rand_wc(rng, 700, ctx), mask, 5)
-    _, count = kernels.mul_decrypt_pallas_tiled_ragged(a, b, mask, return_count=True)
-    want = int(np.sum(np.asarray(core.chunk_matches(core.mul_chunks(a, b), mask))))
-    assert int(count) == want
-
-
-def test_mul_decrypt_ragged_aligned_t2(ctx, sk):
-    """t2 an exact multiple of the block: no boundary tile, no pad columns."""
-    rng = np.random.default_rng(23)
-    mask = jnp.asarray(sk.mask)
-    a = _with_matches(rng, ctx, _rand_wc(rng, 2, ctx), mask, 1)
-    t2 = kernels.ragged_bt(1024)  # bt divides t2 exactly
-    b = _with_matches(rng, ctx, _rand_wc(rng, t2, ctx), mask, 3)
-    prod, parity = kernels.mul_decrypt_pallas_tiled_ragged(a, b, mask)
-    want = core.mul_chunks(a, b)
+    prod, parity = dispatch.mul_decrypt(a, b, mask)
     np.testing.assert_array_equal(np.asarray(prod), np.asarray(want))
-    assert int(parity) == int(core.decrypt_parity(want, mask))
-
-
-# -- staged single-jit fallbacks ----------------------------------------------
-
-
-def test_staged_jmajor_and_grouped_variants(ctx, sk):
-    rng = np.random.default_rng(31)
-    mask = jnp.asarray(sk.mask)
-    a = _with_matches(rng, ctx, _rand_wc(rng, 6, ctx), mask, 2)
-    b = _with_matches(rng, ctx, _rand_wc(rng, 5, ctx), mask, 2)
-    want = core.mul_chunks(a, b)
-    want_parity = int(core.decrypt_parity(want, mask))
-
-    prod_jm, par_jm = dispatch._jit_staged_mul_decrypt("jm_xla", False)(a, b, mask)
-    tag = order.cross_logical(None, None, 6, 5, jmajor=True)
-    np.testing.assert_array_equal(
-        np.asarray(order.canonicalize(prod_jm, tag)), np.asarray(want)
-    )
-    assert int(par_jm) == want_parity
-
-    prod_g, par_g = dispatch._jit_staged_mul_decrypt("grouped", False)(a, b, mask)
-    np.testing.assert_array_equal(np.asarray(prod_g), np.asarray(want))
-    assert int(par_g) == want_parity
-
-    _, cnt = dispatch._jit_staged_mul_decrypt("grouped", True)(a, b, mask)
-    assert int(cnt) == int(np.sum(np.asarray(core.chunk_matches(want, mask))))
+    assert int(parity) == int(core.decrypt_parity(want, mask)) == (fa * fb) & 1
+    _, count = dispatch.mul_decrypt_count(a, b, mask)
+    assert int(count) == int(np.sum(np.asarray(core.chunk_matches(want, mask))))
 
 
 # -- SecretKey.mul_and_decrypt across forced routes ---------------------------
 
 
-def _route_jm_flat(a, b, mask):
-    out, v = kernels.mul_decrypt_pallas(b, a, mask)
-    return out, True, 0, 0, v
+def _route_jm_xla(a, b, mask):
+    out = dispatch.mul_chunks_jmajor(a, b)
+    return out, True, 0, 0, core.decrypt_parity(out, mask)
 
 
-def _route_jm_tiled(a, b, mask):
-    out, v = kernels.mul_decrypt_pallas_tiled(b, a, mask)
-    return out, True, 0, 0, v
-
-
-def _route_ragged(a, b, mask):
-    zp = kernels.ragged_padded(b.shape[-1]) - b.shape[-1]
-    out, v = kernels.mul_decrypt_pallas_tiled_ragged(a, b, mask)
-    return out, False, 0, zp, v
+def _padded_jmajor(a, b, align=16):
+    """Zero-pad a's chunk axis to a multiple of `align`, then j-major
+    product: the layout of a route that aligns its streamed operand."""
+    zp = -a.shape[-1] % align
+    ap = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, zp)])
+    return core.mul_chunks(b, ap), zp
 
 
 def _route_jm_ragged(a, b, mask):
-    zp = kernels.ragged_padded(a.shape[-1]) - a.shape[-1]
-    out, v = kernels.mul_decrypt_pallas_tiled_ragged(b, a, mask)
-    return out, True, zp, 0, v
-
-
-def _route_jm_xla(a, b, mask):
-    out, v = dispatch._jit_staged_mul_decrypt("jm_xla", False)(a, b, mask)
-    return out, True, 0, 0, v
+    out, zp = _padded_jmajor(a, b)
+    return out, True, zp, 0, core.decrypt_parity(out, mask)
 
 
 @pytest.mark.parametrize(
     "route,t1,t2",
-    [
-        (_route_jm_flat, 128, 3), (_route_jm_tiled, 256, 2),
-        (_route_ragged, 3, 999), (_route_jm_ragged, 777, 2),
-        (_route_jm_xla, 9, 4),
-    ],
-    ids=["jm_flat", "jm_tiled", "ragged", "jm_ragged", "jm_xla"],
+    [(_route_jm_ragged, 777, 2), (_route_jm_xla, 9, 4)],
+    ids=["jm_ragged", "jm_xla"],
 )
 def test_mul_and_decrypt_forced_routes(ctx, sk, monkeypatch, route, t1, t2):
     """Every fused route: product canonicalizes to the oracle, parity matches,
@@ -173,10 +115,10 @@ def test_mul_and_decrypt_tagged_padded_operands(ctx, sk, monkeypatch):
     base = Ciphertext(_with_matches(rng, ctx, _rand_wc(rng, 37, ctx), mask, 4), ctx)
     small = Ciphertext(_with_matches(rng, ctx, _rand_wc(rng, 3, ctx), mask, 1), ctx)
 
-    # Build a padded, tag-carrying accumulator via the ragged multiply route.
+    # Build a padded, tag-carrying accumulator via a padded j-major route.
     def ragged_auto(a, b):
-        zp = kernels.ragged_padded(a.shape[-1]) - a.shape[-1]
-        return kernels.mul_chunks_pallas_tiled_ragged(b, a), True, zp, 0
+        out, zp = _padded_jmajor(a, b)
+        return out, True, zp, 0
 
     monkeypatch.setattr(dispatch, "mul_chunks_auto", ragged_auto)
     acc = base * small
@@ -208,11 +150,8 @@ def test_mul_and_decrypt_eager_order(ctx, sk):
 
 
 def _b_route_jm_ragged(a, b, mask):
-    zp = kernels.ragged_padded(a.shape[-1]) - a.shape[-1]
-    out, bits = jax.vmap(
-        lambda x, y: kernels.mul_decrypt_pallas_tiled_ragged(y, x, mask)
-    )(a, b)
-    return out, True, zp, 0, bits
+    out, zp = _padded_jmajor(a, b)
+    return out, True, zp, 0, core.decrypt_parity(out, mask)
 
 
 def test_mul_and_decrypt_batch_forced_ragged(ctx, sk, monkeypatch):
@@ -240,7 +179,7 @@ def test_mul_and_decrypt_batch_forced_ragged(ctx, sk, monkeypatch):
 
 
 def test_mul_decrypt_batched_auto_xla_fallback(ctx, sk):
-    """CPU default route: staged XLA, canonical order, per-element parity."""
+    """Batched route: canonical order, per-element parity."""
     rng = np.random.default_rng(5)
     mask = jnp.asarray(sk.mask)
     B = 4

@@ -27,3 +27,15 @@ def test_dryrun_multichip_2():
     import __graft_entry__ as g
 
     g.dryrun_multichip(2)
+
+
+def test_ensure_devices_raises_when_too_few():
+    """No silent platform switch: asking for more devices than exist raises."""
+    import pytest
+
+    import __graft_entry__ as g
+
+    have = len(jax.devices())
+    g._ensure_devices(have)
+    with pytest.raises(RuntimeError, match=f"need {have * 2} devices, have {have}"):
+        g._ensure_devices(have * 2)

@@ -1,6 +1,6 @@
-"""Negative tests: every guarded entry point must fail LOUDLY (round-4
-VERDICT items 5-6 — unguarded paths + proof the subprocess harnesses can
-detect corruption instead of printing OK)."""
+"""Negative tests: every guarded entry point must fail LOUDLY (unguarded
+paths + proof the subprocess harnesses can detect corruption instead of
+printing OK)."""
 
 import importlib.util
 import os

@@ -29,3 +29,17 @@ def test_multiprocess_sharded_mul_decrypt(nproc):
     assert "multihost demo: OK" in proc.stdout
     for pid in range(nproc):
         assert f"[proc {pid}]" in proc.stdout
+
+
+def test_initialize_passes_local_device_ids(monkeypatch):
+    """One process per card: `initialize` forwards `local_device_ids`, so a
+    process claims only its own card."""
+    import jax
+
+    from csgn_tpu.parallel import multihost
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: seen.update(kw))
+    multihost.initialize("localhost:1234", 4, 2, local_device_ids=[2])
+    assert seen == {"coordinator_address": "localhost:1234", "num_processes": 4,
+                    "process_id": 2, "local_device_ids": [2]}

@@ -1,8 +1,8 @@
 """Lazy chunk-order tags: composition through ops, canonicalization, interop.
 
-CPU tests force the j-major multiply path (the TPU dispatch picks it
-automatically for small/unaligned t2); every result must canonicalize to the
-reference-order oracle bit-exactly."""
+The tests force the j-major (and zero-padded j-major) multiply layouts that
+the tags describe; every result must canonicalize to the reference-order
+oracle bit-exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -32,15 +32,22 @@ def jmajor_mul(monkeypatch):
     yield
 
 
+def padded_jmajor(a, b, align=16):
+    """A zero-padded j-major product: a's chunk axis padded with all-zero
+    chunks up to a multiple of `align`, then swapped-operand canonical
+    product — the layout a route that aligns its streamed operand emits."""
+    t1 = a.shape[-1]
+    zp = -t1 % align
+    ap = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, zp)])
+    return core.mul_chunks(b, ap), True, zp, 0
+
+
 @pytest.fixture
 def ragged_mul(monkeypatch):
-    """Force Ciphertext.__mul__ onto the ragged (zero-padded j-major) path."""
-    from csgn_tpu.ops import kernels
+    """Force Ciphertext.__mul__ onto a zero-padded j-major path."""
 
     def auto(a, b):
-        t1 = a.shape[-1]
-        zp = kernels.ragged_padded(t1) - t1
-        return kernels.mul_chunks_pallas_tiled_ragged(b, a), True, zp, 0
+        return padded_jmajor(a, b)
 
     monkeypatch.setattr(dispatch, "mul_chunks_auto", auto)
     yield
@@ -136,23 +143,6 @@ def test_inverse_permutation_roundtrip():
     perm = jnp.asarray(rng.permutation(257).astype(np.int32))
     inv = order.inverse_permutation(perm)
     np.testing.assert_array_equal(np.asarray(perm)[np.asarray(inv)], np.arange(257))
-
-
-def test_ragged_kernel_oracle_and_zero_pads(ctx):
-    """Ragged kernel output: real chunks match the oracle per i-block, pad
-    lanes are exactly zero (parity-neutrality depends on it)."""
-    from csgn_tpu.ops import kernels
-
-    rng = np.random.default_rng(10)
-    a, b = _rand_ct(rng, 3, ctx), _rand_ct(rng, 1100, ctx)  # unaligned streamed b
-    out = np.asarray(kernels.mul_chunks_pallas_tiled_ragged(a.wt, b.wt))
-    t2p = kernels.ragged_padded(1100)
-    assert out.shape == (ctx.words32, 3 * t2p)
-    want = np.asarray(core.mul_chunks(a.wt, b.wt))
-    for i in range(3):
-        blk = out[:, i * t2p : (i + 1) * t2p]
-        np.testing.assert_array_equal(blk[:, :1100], want[:, i * 1100 : (i + 1) * 1100])
-        assert not blk[:, 1100:].any()
 
 
 def test_pad_chunks_compose_and_canonicalize(ctx, ragged_mul):

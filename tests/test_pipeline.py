@@ -131,3 +131,39 @@ def test_mul_chain_sharded_decrypt_fused(small_ctx):
         want = mul_chain([first, last])
         np.testing.assert_array_equal(jax.device_get(prod.wt), np.asarray(want.wt), err_msg=name)
         assert int(dec) == int(sk.decrypt(want)), name
+
+
+def test_default_budget_on_host_device():
+    """The CPU backend reports no memory limit: the host default applies."""
+    import jax
+
+    from csgn_tpu import pipeline
+
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" not in stats:
+        assert pipeline.default_budget_bytes() == pipeline.HOST_BUDGET_BYTES
+
+
+def test_default_budget_follows_device_limit(monkeypatch, small_ctx):
+    """A device that reports its memory limit sets the budget (3/4 of it),
+    and mul_chain's default enforces that budget."""
+    import jax
+
+    from csgn_tpu import pipeline
+
+    class FakeDevice:
+        def memory_stats(self):
+            return {"bytes_limit": 1 << 20}
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeDevice()])
+    assert pipeline.default_budget_bytes() == 3 << 18
+    rng = np.random.default_rng(64)
+    cts = [
+        Ciphertext(jnp.asarray(rng.integers(0, 2**32, (small_ctx.words32, t), dtype=np.uint32)
+                               & small_ctx.valid_mask[:, None]), small_ctx)
+        for t in (256, 256, 2)
+    ]
+    # Peak live chunks 256 * 257 exceed 3/4 MiB; the same chain fits without a budget.
+    with pytest.raises(ValueError, match="budget"):
+        pipeline.mul_chain(cts)
+    assert pipeline.mul_chain(cts, budget_bytes=None).chunks == 256 * 256 * 2
